@@ -138,8 +138,8 @@ def determine_orientations(
     ``use_mkt`` the ambiguous (non-monotonic) runs are batched into ONE
     device Mann-Kendall S computation (``ops.mannkendall.mk_s_batch``,
     integer-exact) with the float64 tail finished on host — bit-identical
-    p/z to the scalar path.  Falls back to scalar per-run MK when JAX is
-    unavailable or a run exceeds the int32-exact S bound.
+    p/z to the scalar path.  Runs past the int32-exact S bound (or with
+    positions past int32) take the scalar per-run MK.
     """
     out = [""] * len(runs)
     ambiguous: list[int] = []
@@ -161,26 +161,25 @@ def determine_orientations(
 
     max_len = max(len(runs[i]) for i in ambiguous)
     s_vals = None
-    if len(ambiguous) >= 2 and max_len <= 65536:
-        try:
-            import jax.numpy as jnp
-            import numpy as np
+    if (
+        len(ambiguous) >= 2
+        and max_len <= 65536
+        and max(max(runs[i]) for i in ambiguous) < 2**31  # int32 positions
+    ):
+        import jax.numpy as jnp
+        import numpy as np
 
-            from ntjoin_tpu.ops.mannkendall import mk_s_batch
+        from ntjoin_tpu.ops.mannkendall import mk_s_batch
 
-            pad = 8
-            while pad < max_len:
-                pad *= 2
-            pos = np.zeros((len(ambiguous), pad), np.int32)
-            lengths = np.zeros(len(ambiguous), np.int32)
-            for j, i in enumerate(ambiguous):
-                pos[j, : len(runs[i])] = runs[i]
-                lengths[j] = len(runs[i])
-            s_vals = np.asarray(
-                mk_s_batch(jnp.asarray(pos), jnp.asarray(lengths))
-            )
-        except Exception:
-            s_vals = None  # device unavailable: scalar host MK is exact
+        pad = 8
+        while pad < max_len:
+            pad *= 2
+        pos = np.zeros((len(ambiguous), pad), np.int32)
+        lengths = np.zeros(len(ambiguous), np.int32)
+        for j, i in enumerate(ambiguous):
+            pos[j, : len(runs[i])] = runs[i]
+            lengths[j] = len(runs[i])
+        s_vals = np.asarray(mk_s_batch(jnp.asarray(pos), jnp.asarray(lengths)))
     for j, i in enumerate(ambiguous):
         if s_vals is not None:
             trend, h, p, _ = _mk_finish(int(s_vals[j]), runs[i])

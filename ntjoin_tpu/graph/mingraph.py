@@ -63,12 +63,9 @@ class MinimizerGraph:
         mask = self.alive if edge_mask is None else edge_mask
         s, d = self.src[mask], self.dst[mask]
         if self.use_device_cc:
-            try:
-                from ntjoin_tpu.ops.cc_jax import connected_components_device
+            from ntjoin_tpu.ops.cc_jax import connected_components_device
 
-                return connected_components_device(self.num_nodes, s, d)
-            except Exception:  # device trouble: host paths are exact
-                pass
+            return connected_components_device(self.num_nodes, s, d)
         if _scipy_cc is not None:
             m = coo_matrix(
                 (np.ones(s.shape[0], dtype=np.int8), (s, d)),

@@ -23,6 +23,7 @@ import numpy as np
 
 from ntjoin_tpu.core.assembly import SharedIndex
 from ntjoin_tpu.graph.mingraph import MinimizerGraph
+from ntjoin_tpu.utils.routes import host_route
 
 
 @dataclass
@@ -230,8 +231,8 @@ def find_paths(
     graph-scale passes as XLA programs: the escalating branch filter as a
     lax.while_loop of masked scatter-add degree passes, and ALL simple
     chains at once via half-edge pointer-jumping list ranking
-    (``ops/device_paths.py``) — bit-identical results, with host fallback
-    on any device trouble.
+    (``ops/device_paths.py``) — bit-identical results.  Weights that
+    float32 cannot hold exactly take the host filter (a counted route).
     """
     weights = np.array([a.weight for a in shared.assemblies])
     if graph.num_nodes == 0:
@@ -241,15 +242,20 @@ def find_paths(
 
     filtered = False
     if device:
-        try:
-            from ntjoin_tpu.ops.device_paths import escalate_filter_device
+        from ntjoin_tpu.ops.device_paths import (
+            escalate_filter_device,
+            weights_exact_f32,
+        )
 
+        if weights_exact_f32(graph.weight, n_min, float(weights.sum())):
             graph.alive = escalate_filter_device(
                 graph, comp, n_min, float(weights.sum())
             )
             filtered = True
-        except Exception:  # device trouble: the host pass is exact
-            filtered = False
+        else:
+            host_route(
+                "edge weights not exact in float32: host escalating filter"
+            )
     if not filtered:
         escalating_branch_filter(graph, comp, n_min, float(weights.sum()))
 
@@ -301,12 +307,9 @@ def find_paths(
 
     walker = None
     if device:
-        try:
-            from ntjoin_tpu.ops.device_paths import make_rank_walker
+        from ntjoin_tpu.ops.device_paths import make_rank_walker
 
-            walker = make_rank_walker(n1, n2, e1, e2)
-        except Exception:  # device trouble: the native walk is exact
-            walker = None
+        walker = make_rank_walker(n1, n2, e1, e2)
 
     # deterministic order: (parent component min node, subcomponent min node)
     labels = sorted(

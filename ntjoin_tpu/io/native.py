@@ -44,7 +44,7 @@ def _load():
                 capture_output=True,
                 timeout=120,
             )
-        except Exception:
+        except (subprocess.SubprocessError, OSError):
             if stale:
                 return None  # never load a known-stale binary
     if not os.path.exists(so):

@@ -26,7 +26,7 @@ order.  The device returns 4-bit per-assembly support *counts* (packed
 nibbles, 8 assemblies per u32 word) and the host replays the same
 ascending-assembly repeated addition, so float weights match bit-for-bit.
 Counts saturating at 15 (same unordered pair adjacent >= 15 times within
-one assembly) trigger a host-path fallback.
+one assembly) route the graph build to the host (a counted route).
 """
 from __future__ import annotations
 
@@ -35,6 +35,8 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from ntjoin_tpu.utils.routes import host_route
 
 _I32 = jnp.int32
 _U32 = jnp.uint32
@@ -50,8 +52,7 @@ def _bucket(n: int, lo: int = 1024) -> int:
 def _compact_1d(flags, cap: int, *vals):
     """Rank-compact 1-D ``vals`` where ``flags`` is set (order-preserving).
 
-    cumsum + searchsorted + gather; no large scatters (an XLA scatter has a
-    ~80 ms fixed cost on a v5e — see ops/sketch_pallas._invert_ranks).
+    cumsum + searchsorted + gather.
     """
     cum = jnp.cumsum(flags.astype(_I32))
     count = cum[-1]
@@ -192,10 +193,10 @@ def shared_index_device(assemblies):
     n_asm = len(assemblies)
     # device positions are int32: a >= 2^31 bp contig (its sketch came
     # from the host path, which has no size limit) would WRAP silently in
-    # the astype below — fall back to the bit-exact host index instead,
-    # the same discipline as every other device-capacity limit here
+    # the astype below — the bit-exact host index takes it instead
     for a in assemblies:
         if a.pos.size and int(a.pos.max()) >= 2**31:
+            host_route(f"{a.name}: minimizer positions past int32")
             return SharedIndex(assemblies)
     lens = [a.hash.shape[0] for a in assemblies]
     total = sum(lens)
@@ -263,6 +264,7 @@ def build_graph_device(shared):
 
     n_asm = len(shared.assemblies)
     if n_asm > 32:
+        host_route(f"{n_asm} assemblies: the device support mask holds 32")
         return build_graph(shared)
     nn = shared.num_nodes
     total = sum(ids.shape[0] for ids, _ in shared.streams)
@@ -279,14 +281,18 @@ def build_graph_device(shared):
         ctg[cursor : cursor + m] = ctgs
         asm[cursor : cursor + m] = a
         cursor += m
-    cap_edges = _bucket(min(4 * nn + 4096, padded))
+    # every assembly stream visits each node at most once, so it adds at
+    # most nn - 1 distinct edges: the cap cannot overflow
+    cap_edges = _bucket(min(n_asm * nn, total))
     o_lo, o_hi, o_counts, o_enc, n_edges = _edge_tally_exact(
         jnp.asarray(nid), jnp.asarray(ctg), jnp.asarray(asm),
         jnp.asarray(np.int32(nn)), cap_edges,
     )
     ne = int(n_edges)
-    if ne > cap_edges:
-        return build_graph(shared)
+    if ne > cap_edges:  # the visit bound above failed: never truncate
+        raise RuntimeError(
+            f"device edge tally found {ne} edges, past its cap {cap_edges}"
+        )
     o_lo = np.asarray(o_lo[:ne]).astype(np.int64)
     o_hi = np.asarray(o_hi[:ne]).astype(np.int64)
     o_counts = np.asarray(o_counts[:ne])
@@ -297,7 +303,8 @@ def build_graph_device(shared):
     for a in range(n_asm):
         counts[:, a] = (o_counts[:, a // 8] >> np.uint32(4 * (a % 8))) & np.uint32(0xF)
     if (counts == 15).any():
-        return build_graph(shared)  # possible nibble saturation
+        host_route("an edge support count saturates its 4-bit field")
+        return build_graph(shared)
 
     # first-occurrence ordering and orientation (reference dict insertion
     # order; host mingraph.build_graph does the same via argsort of occ)

@@ -19,12 +19,10 @@ with the graph — run as XLA programs over the whole graph at once.
   the node count remaining — the host then slices per chain (the walked
   order of chain ``s..t`` = half-edges pointing at ``t``, by descending
   remaining-count).  Replaces the sequential per-chain native walk with
-  O(log n) data-parallel rounds — the shape that matters at pod-scale
-  component counts.
+  O(log n) data-parallel rounds.
 
 Both are exact; the host implementations remain the byte-equality oracle
-(``tests/test_device_paths.py``) and the default over relay-attached
-links where transfers dominate at current graph sizes.
+(``tests/test_device_paths.py``).
 """
 from __future__ import annotations
 
@@ -79,6 +77,26 @@ def _escalate_jit(src, dst, weight, alive, comp, n_nodes: int,
     return alive
 
 
+def weights_exact_f32(weight: np.ndarray, n_min: float,
+                      max_weight: float) -> bool:
+    """Whether the device filter's float32 compares are exact.
+
+    The kernel compares weights and thresholds in float32 where the host
+    pass compares float64: a weight that float32 cannot hold (e.g.
+    reference_weights='0.1 0.3') could flip a ``weight < threshold``
+    verdict, and the +1.0 threshold walk must stay in float32's exact
+    integer range.
+    """
+    w64 = np.asarray(weight, dtype=np.float64)
+    return (
+        abs(float(n_min)) <= 2.0**23  # +1.0 walk stays f32-exact, incl. x.5
+        and abs(float(max_weight)) <= 2.0**23
+        and float(np.float32(n_min)) == float(n_min)
+        and float(np.float32(max_weight)) == float(max_weight)
+        and bool(np.all(w64.astype(np.float32).astype(np.float64) == w64))
+    )
+
+
 def escalate_filter_device(graph, comp: np.ndarray, n_min: float,
                            max_weight: float) -> np.ndarray:
     """Device escalating branch filter; returns the new alive mask.
@@ -87,22 +105,7 @@ def escalate_filter_device(graph, comp: np.ndarray, n_min: float,
     edges below the escalating threshold incident to a branch node of a
     not-yet-linear component die, one threshold step per iteration.
     """
-    # The kernel compares weights/thresholds in float32 while the host pass
-    # compares float64: a weight not exactly representable in f32 (e.g.
-    # reference_weights='0.1 0.3') could flip a `weight < threshold`
-    # verdict.  Same exactness discipline as build_graph_device's nibble
-    # saturation guard: if anything fails to round-trip f64 -> f32 (or the
-    # +1.0 threshold walk would leave the f32-exact integer range), raise —
-    # the caller falls back to the bit-exact host pass.
-    w64 = np.asarray(graph.weight, dtype=np.float64)
-    exact = (
-        abs(float(n_min)) <= 2.0**23  # +1.0 walk stays f32-exact, incl. x.5
-        and abs(float(max_weight)) <= 2.0**23
-        and float(np.float32(n_min)) == float(n_min)
-        and float(np.float32(max_weight)) == float(max_weight)
-        and bool(np.all(w64.astype(np.float32).astype(np.float64) == w64))
-    )
-    if not exact:
+    if not weights_exact_f32(graph.weight, n_min, max_weight):
         raise ValueError(
             "edge weights/threshold not exactly representable in float32; "
             "host escalating filter required for bit-exact results"

@@ -1,13 +1,12 @@
-"""Multi-host initialisation and the cross-host filter exchange.
+"""Multi-process initialisation and the cross-process filter exchange.
 
-The reference has no distribution at all (SURVEY §2.2); at pod scale the
-framework runs one process per host with ``jax.distributed`` and a global
-mesh spanning every host's devices.  Shardings keep reference sketches
-replicated and target tiles data-parallel; the global uniqueness /
-intersection verdicts ride all-gathers over ICI within a slice and DCN
-across hosts (see ``parallel/mesh.py`` for the single-process collectives).
+The reference has no distribution at all (SURVEY §2.2); here several
+processes run ``jax.distributed`` over one global 1-D mesh of every
+process's devices, and the global uniqueness / intersection verdict rides
+collectives over it (see ``parallel/mesh.py`` for the single-process
+collectives).  Each process drives the card of its local rank.
 
-Multi-process operation is testable without a pod: each process forces the
+Multi-process operation is testable without GPUs: each process forces the
 CPU backend and a virtual device count, and the coordinator runs on
 localhost (``tests/test_distributed.py``).
 """
@@ -18,24 +17,60 @@ import numpy as np
 from jax.sharding import Mesh
 
 
+_LOCAL_RANK_VARS = ("LOCAL_RANK", "SLURM_LOCALID", "OMPI_COMM_WORLD_LOCAL_RANK")
+_LOCAL_HOSTS = ("localhost", "127.0.0.1", "::1", "[::1]")
+
+
+def local_card(coordinator: str, process_id: int, env) -> int | None:
+    """The card this process pins among its host's visible cards, or None.
+
+    The local rank is the launcher's (``LOCAL_RANK`` and kin) when it sets
+    one; else, with the coordinator on ``localhost``, every process shares
+    this host and the global id is the local rank.  Otherwise (processes
+    on several hosts, no local rank) nothing is pinned.  A rank past the
+    cards ``CUDA_VISIBLE_DEVICES`` lists is not pinned either.
+    """
+    rank = next((int(env[v]) for v in _LOCAL_RANK_VARS
+                 if env.get(v, "").isdigit()), None)
+    if rank is None:
+        if coordinator.rsplit(":", 1)[0] not in _LOCAL_HOSTS:
+            return None
+        rank = process_id
+    visible = env.get("CUDA_VISIBLE_DEVICES")
+    if visible is not None and rank >= len([d for d in visible.split(",") if d]):
+        return None
+    return rank
+
+
 def initialize(
     coordinator: str,
     num_processes: int,
     process_id: int,
     local_device_count: int | None = None,
 ) -> None:
-    """Join the distributed runtime.  Call once, before any jax use."""
-    if local_device_count is not None:
-        import os
+    """Join the distributed runtime.  Call once, before any jax use.
 
+    ``local_device_count`` gives each process that many virtual CPU
+    devices (tests); otherwise the process is pinned to its card
+    (``local_card``) — a JAX process reserves memory on every card it can
+    see, so without the pin the second process on a host finds none left.
+    """
+    import os
+
+    local_ids = None
+    if local_device_count is not None:
         flags = os.environ.get("XLA_FLAGS", "")
         os.environ["XLA_FLAGS"] = (
             f"{flags} --xla_force_host_platform_device_count={local_device_count}"
         )
+    else:
+        card = local_card(coordinator, process_id, os.environ)
+        local_ids = None if card is None else [card]
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_ids,
     )
 
 
@@ -49,7 +84,7 @@ def distributed_survive(mesh: Mesh, lo, hi, asm, alive, n_asm: int):
 
     Every shard all-gathers the FULL (hash, assembly) streams and derives
     the identical verdict — per-device memory is O(total), which is the
-    replication the pod-scale design excludes.  The product path is
+    replication the sharded design avoids.  The product path is
     ``distributed_survive_sharded`` (hash-bucket all-to-all, per-device
     memory O(total / n_devices)); this version is kept as the differential-
     testing oracle (``tests/test_distributed.py`` asserts bit-equality).

@@ -1,18 +1,23 @@
-"""Multi-chip sharding: sequence-parallel sketching + distributed filters.
+"""Multi-device sharding: sequence-parallel sketching + distributed filters.
 
-The reference is single-node (SURVEY §2.2); this module adds what the
-TPU-era framework needs instead of its thread pools:
+The reference is single-node (SURVEY §2.2); this module spreads the work
+over every device of the host instead of its thread pools.  The CLI does
+not take this sketch (one process drives one card; ``ops/sketch_gpu.py``
+is the device sketch); ``__graft_entry__.dryrun_multichip`` and the tests
+exercise it:
 
-* a 1-D device mesh over which long sequences are tiled (the framework's
-  sequence parallelism: fixed-size base tiles with ``w + k - 2`` halos so
-  every window's argmin is computed exactly at tile seams),
+* a plain 1-D mesh over ``jax.devices()`` (GPUs of one host reach each
+  other all to all over NVLink, so the mesh follows the algorithm alone)
+  over which long sequences are tiled (the framework's sequence
+  parallelism: fixed-size base tiles with ``w + k - 2`` halos so every
+  window's argmin is computed exactly at tile seams),
 * ``shard_map``-based sketching with per-shard emission and host-side seam
   dedupe (the emission rule "argmin position changed vs previous window"
   needs one extra boundary window, folded into the halo),
 * the distributed global uniqueness filter: per-shard sorted minimizer
   hashes are all-gathered and every shard derives the identical duplicate
   set — the collective pattern that replaces nothing in the reference (it
-  had no distribution) but is required at pod scale.
+  had no distribution).
 
 Exactness note: tiles are split on the *valid-k-mer stream*, not on base
 positions — shard d owns stream windows [d*tw, (d+1)*tw) and its base tile
@@ -70,7 +75,7 @@ def _tile_record(codes: np.ndarray, n_shards: int, k: int, w: int):
 
     Fully vectorized (one broadcast gather builds all tiles at once): at
     Gbp scale a per-shard python slice loop was real per-record dispatch
-    overhead a pod would pay too (round-4 verdict item 5).
+    overhead (round-4 verdict item 5).
     """
     vk = _valid_kmer_starts(codes, k)
     ns = vk.size - w + 1  # global stream windows

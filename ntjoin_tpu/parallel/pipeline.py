@@ -17,7 +17,7 @@ the surviving streams are restored to per-assembly stream order before
 scaffolding, so artifacts are byte-identical to a single-process run at
 any process count (``tests/test_distributed.py``).
 
-Runs without a pod: each process forces the CPU backend and a virtual
+Runs without GPUs too: each process forces the CPU backend and a virtual
 device count, with the coordinator on localhost.  With ``coordinator=None``
 the same code path runs single-process over the local devices (used by
 ``__graft_entry__.dryrun_multichip``).
@@ -61,8 +61,8 @@ def distributed_assemble(cfg: DistributedConfig, sketch_fn=None) -> None:
 
     Every process calls this; artifacts are written by process 0 only.
     ``sketch_fn(codes, k, w) -> Sketch`` defaults to the best local host
-    backend (each process sketches its own record shard; keep the TPU
-    backend to a single process per chip).
+    backend (each process sketches its own record shard on the host; the
+    devices carry the collective verdict).
     """
     import jax
     from jax.experimental import multihost_utils

@@ -34,16 +34,22 @@ def synth_genome(rng: np.random.Generator, length: int) -> np.ndarray:
     return rng.integers(0, 4, size=length, dtype=np.int8)
 
 
-CODES = np.frombuffer(b"ACGT", dtype=np.uint8)
+CODES = np.frombuffer(b"ACGTN", dtype=np.uint8)  # code 4: N
 
 
 def write_fasta(path: str, records: list[tuple[str, np.ndarray]]) -> None:
+    """FASTA with 80-base lines, each record's full lines written as one
+    (lines, 81) block."""
     with open(path, "wb") as fh:
         for name, codes in records:
             fh.write(b">" + name.encode() + b"\n")
-            seq = CODES[codes]
-            for i in range(0, seq.shape[0], 80):
-                fh.write(seq[i : i + 80].tobytes() + b"\n")
+            full = codes.shape[0] // 80
+            block = np.empty((full, 81), np.uint8)
+            block[:, :80] = CODES[codes[: full * 80]].reshape(full, 80)
+            block[:, 80] = ord("\n")
+            fh.write(block.tobytes())
+            if codes.shape[0] % 80:
+                fh.write(CODES[codes[full * 80 :]].tobytes() + b"\n")
 
 
 def make_inputs(workdir: str, mbp: float, seed: int = 7, n_refs: int = 1):

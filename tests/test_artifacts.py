@@ -271,8 +271,10 @@ def test_help_lists_every_parameter(capsys):
 
 
 def test_auto_routing_gz_size_estimate(tmp_path, monkeypatch):
-    """backend=auto must estimate bases from the gzip ISIZE trailer for
-    .gz inputs (raw .gz file size undercounts ~4x — round-4 advisor)."""
+    """backend=auto routes on the bases of short records, read from the
+    .fai indexes: a plain FASTA's records count by their lengths, a
+    gzipped one (no index to read; no decompression just to route)
+    counts none."""
     import gzip
 
     import numpy as np
@@ -280,27 +282,27 @@ def test_auto_routing_gz_size_estimate(tmp_path, monkeypatch):
     import ntjoin_tpu.cli as cli
 
     rng = np.random.default_rng(3)
-    seq = "".join("ACGT"[i] for i in rng.integers(0, 4, 200_000))
+    seq = "".join("ACGT"[i] for i in rng.integers(0, 4, 20_000))
     gz = tmp_path / "big.fa.gz"
     with gzip.open(gz, "wt") as fh:
         fh.write(">x\n" + seq + "\n")
-    assert os.path.getsize(gz) < 100_000  # compresses well below raw
+    (tmp_path / "plain.fa").write_text(">y\n" + seq + "\n>z\n" + seq[:9_000] + "\n")
 
     seen = {}
 
-    def spy_backend(name, total_bases=None):
-        seen["bases"] = total_bases
+    def spy_backend(name, short_bases=0):
+        seen["bases"] = short_bases
         raise SystemExit(0)  # stop before any real work
 
     monkeypatch.setattr(cli, "_sketch_backend", spy_backend)
+    monkeypatch.setattr(cli.os, "cpu_count", lambda: 16)
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit):
         cli.assemble([
             "backend=auto", f"target={gz.name}", "target_weight=1",
-            f"references={gz.name}", "reference_weights=2",
+            "references=plain.fa", "reference_weights=2",
         ])
-    # two inputs x ~200 kbp each, not 2 x ~55 kB of compressed bytes
-    assert seen["bases"] > 390_000
+    assert seen["bases"] == 29_000
 
 
 def test_fasta_store_ragged_last_line_longer(tmp_path):

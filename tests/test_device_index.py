@@ -156,9 +156,91 @@ def test_shared_index_device_big_position_fallback():
             np.zeros(3, dtype=np.int32),
         )
 
+    from ntjoin_tpu.utils import routes
+
     big = 2**31 + 5
+    routes.reset()
     got = shared_index_device([asm("a", big), asm("b", 0)])
+    assert routes.host_routes() == 1  # a counted capacity route
     ref = SharedIndex([asm("a", big), asm("b", 0)])
     assert got.node_hash.tolist() == ref.node_hash.tolist()
     assert (got.pos == ref.pos).all()  # no int32 wrap
     assert int(got.pos.max()) > 2**31
+
+
+def test_graph_device_many_assemblies_routes_to_host():
+    """Past 32 assemblies the device support mask cannot hold the tally:
+    a counted host route with the host builder's exact graph."""
+    from ntjoin_tpu.utils import routes
+
+    asms = _mk_assemblies(5, n_asm=33, n_ctg=2, per_ctg=60, dup_frac=0.0)
+    shared = SharedIndex(asms)
+    routes.reset()
+    dev_g = build_graph_device(shared)
+    assert routes.host_routes() == 1
+    host_g = build_graph(shared)
+    assert dev_g.src.tolist() == host_g.src.tolist()
+    assert dev_g.weight.tolist() == host_g.weight.tolist()
+
+
+def test_graph_device_support_saturation_routes_to_host():
+    """An unordered pair adjacent 15+ times in one assembly saturates its
+    4-bit support count: a counted host route, exact graph."""
+    from ntjoin_tpu.utils import routes
+
+    # the pair 11-22 once in each of 15 contigs of a0 (real streams hold a
+    # node once per assembly; the tiled stream forces the saturation)
+    n = 15
+    h0 = np.array([11, 22], np.uint64)
+    a0 = AssemblySketch.from_stream(
+        "a0", 1.0, ["c"], h0, np.array([0, 10], np.int64), np.zeros(2, np.int32)
+    )
+    a1 = AssemblySketch.from_stream(
+        "a1", 1.0, ["c"], h0, np.array([0, 10], np.int64), np.zeros(2, np.int32)
+    )
+    shared = SharedIndex([a0, a1])
+    # replay the same stream many times: counts past the nibble
+    ids, ctgs = shared.streams[0]
+    shared.streams[0] = (np.tile(ids, n), np.repeat(np.arange(n, dtype=np.int32), 2))
+    routes.reset()
+    dev_g = build_graph_device(shared)
+    assert routes.host_routes() == 1
+    host_g = build_graph(shared)
+    assert dev_g.weight.tolist() == host_g.weight.tolist()
+
+
+def test_graph_device_edge_cap_overflow_raises():
+    """The edge cap rests on each stream visiting a node at most once; a
+    stream that breaks it must raise, never come back truncated."""
+    nodes = 60
+    h = np.arange(1, nodes + 1, dtype=np.uint64) * np.uint64(7919)
+    pos = np.arange(nodes, dtype=np.int64) * 10
+    asms = [
+        AssemblySketch.from_stream(n, 1.0, ["c"], h, pos, np.zeros(nodes, np.int32))
+        for n in ("a0", "a1")
+    ]
+    shared = SharedIndex(asms)
+    assert shared.num_nodes == nodes
+    # every pair of nodes adjacent once: 1,770 distinct edges from 60 nodes
+    i, j = np.triu_indices(nodes, 1)
+    ids = np.stack([i, j], 1).reshape(-1).astype(np.int32)
+    shared.streams[0] = (ids, np.repeat(np.arange(i.shape[0], dtype=np.int32), 2))
+    with pytest.raises(RuntimeError, match="past its cap"):
+        build_graph_device(shared)
+
+
+def test_device_cc_error_raises(monkeypatch):
+    """The device component labelling failing is an error, not a silent
+    host run."""
+    import ntjoin_tpu.ops.cc_jax as cc
+    from ntjoin_tpu.graph.mingraph import MinimizerGraph
+
+    def boom(*a, **kw):
+        raise RuntimeError("device failure")
+
+    monkeypatch.setattr(cc, "connected_components_device", boom)
+    g = MinimizerGraph(3, np.array([0]), np.array([1]), np.ones(1),
+                       np.ones(1, np.int64))
+    g.use_device_cc = True
+    with pytest.raises(RuntimeError, match="device failure"):
+        g.components()

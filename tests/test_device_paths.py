@@ -141,9 +141,11 @@ def test_escalate_filter_fractional_weights():
 
 
 def test_find_paths_device_fractional_weight_fallback(monkeypatch):
-    """find_paths(device=True) with non-f32-exact weights silently takes
-    the host filter and still matches find_paths(device=False)."""
+    """find_paths(device=True) with non-f32-exact weights takes the host
+    filter as a counted host route (the device filter is never started)
+    and still matches find_paths(device=False)."""
     from ntjoin_tpu.graph import paths as paths_mod
+    from ntjoin_tpu.utils import routes
 
     called = {"device": 0}
     import ntjoin_tpu.ops.device_paths as dp
@@ -170,7 +172,44 @@ def test_find_paths_device_fractional_weight_fallback(monkeypatch):
     g_host = copy.deepcopy(g)
     g_dev = copy.deepcopy(g)
     res_host = paths_mod.find_paths(g_host, _Shared(), 0.1, device=False)
+    routes.reset()
     res_dev = paths_mod.find_paths(g_dev, _Shared(), 0.1, device=True)
-    assert called["device"] == 1  # attempted, refused via ValueError
+    assert called["device"] == 0  # refused up front, before device work
+    assert routes.host_routes() == 1
     assert (g_host.alive == g_dev.alive).all()
     assert repr(res_host) == repr(res_dev)
+
+
+def test_weights_exact_f32():
+    from ntjoin_tpu.ops.device_paths import weights_exact_f32
+
+    assert weights_exact_f32(np.array([1.0, 2.5, 0.25]), 2.0, 3.0)
+    assert not weights_exact_f32(np.array([0.1, 1.0]), 2.0, 3.0)
+    assert not weights_exact_f32(np.array([1.0]), 0.3, 3.0)
+    assert not weights_exact_f32(np.array([1.0]), 2.0, 2.0**24)
+
+
+@pytest.mark.parametrize("where", ["filter", "walker"])
+def test_find_paths_device_error_raises(monkeypatch, where):
+    """A failing device pass is an error, never a silent host run."""
+    import ntjoin_tpu.ops.device_paths as dp
+    from ntjoin_tpu.graph.paths import find_paths
+
+    def boom(*a, **kw):
+        raise RuntimeError("device failure")
+
+    name = "escalate_filter_device" if where == "filter" else "make_rank_walker"
+    monkeypatch.setattr(dp, name, boom)
+    rng = np.random.default_rng(3)
+    g = _random_graph(rng, 120, 150)
+
+    class _Asm:
+        def __init__(self, w):
+            self.weight = w
+
+    class _Shared:
+        assemblies = [_Asm(2.0), _Asm(1.0)]
+        pos = [np.arange(120, dtype=np.int64), np.arange(120, dtype=np.int64)]
+
+    with pytest.raises(RuntimeError, match="device failure"):
+        find_paths(g, _Shared(), 2.0, device=True)

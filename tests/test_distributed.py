@@ -1,4 +1,4 @@
-"""Multi-process jax.distributed tests on the CPU backend (no pod).
+"""Multi-process jax.distributed tests on the CPU backend.
 
 The distributed pipeline is a product surface (``parallel/pipeline.py``,
 reachable via ``ntjoin-tpu assemble coordinator=... n_procs=...
@@ -9,6 +9,8 @@ import os
 import socket
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -34,6 +36,22 @@ arr = jax.make_array_from_process_local_data(
 total = int(jax.jit(lambda x: x.sum())(arr))
 print("TOTAL", total, flush=True)
 """
+
+
+@pytest.mark.parametrize("coord,pid,env,card", [
+    ("localhost:1234", 3, {}, 3),  # one host: the global id is the local rank
+    ("127.0.0.1:1234", 0, {}, 0),
+    ("node7:1234", 5, {}, None),  # several hosts, no local rank: no pin
+    ("node7:1234", 5, {"LOCAL_RANK": "1"}, 1),  # the launcher's local rank
+    ("node7:1234", 5, {"SLURM_LOCALID": "2"}, 2),
+    ("localhost:1234", 2, {"CUDA_VISIBLE_DEVICES": "0,1,2,3"}, 2),
+    ("localhost:1234", 2, {"CUDA_VISIBLE_DEVICES": "3"}, None),  # past the list
+    ("node7:1234", 9, {"LOCAL_RANK": "1", "CUDA_VISIBLE_DEVICES": "4,5"}, 1),
+])
+def test_local_card_pins_only_a_card_the_process_has(coord, pid, env, card):
+    from ntjoin_tpu.parallel.distributed import local_card
+
+    assert local_card(coord, pid, env) == card
 
 
 def test_two_process_mesh(tmp_path):

@@ -322,9 +322,9 @@ def test_backend_jax_e2e(workdir):
 
 
 def test_backend_jax_mesh_e2e(workdir):
-    """Full pipeline with the in-engine mesh-sharded sketch forced on (8
-    virtual CPU devices): the engine shards every record across the mesh
-    (SURVEY §2.2(a)) and artifacts match the single-device run."""
+    """Full pipeline with backend=jax while 8 virtual CPU devices are
+    visible: one process drives the first device and the path matches the
+    single-device run's."""
     cmd = [sys.executable, "-m", "ntjoin_tpu.cli", "assemble", "-B",
            "backend=jax", "target=scaf.f-f.fa", "target_weight=1",
            "references=ref.fa", "reference_weights=2", "prefix=meshbe",
